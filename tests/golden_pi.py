@@ -2,7 +2,7 @@
 
 An independent, transparent per-column re-derivation of the downscaling PI
 algorithm (Emanuel potential intensity via CAPE differences with table-based
-entropy inversion), used as the trusted oracle for the batched float32 TPU
+entropy inversion), used as the trusted oracle for the batched float32 JAX
 kernel.  Deliberately written loop-wise for clarity.
 """
 

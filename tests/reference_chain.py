@@ -2,7 +2,7 @@
 
 An independent, scalar, solve_ivp-based implementation of the reference
 pipeline's seed -> integrate -> filter chain, used ONLY to establish
-whole-chain statistical parity of the TPU pipeline (VERDICT round 1, item 2).
+whole-chain statistical parity of the JAX pipeline (VERDICT round 1, item 2).
 
 Reference call path being reproduced (cited per stage below):
   util/compute.py:134-175   rejection-sampling seed loop
@@ -14,7 +14,7 @@ Reference call path being reproduced (cited per stage below):
   util/sphere.py:15-83      haversine / translational speed
 
 Everything here runs on a FieldPack's arrays through RectBivariateSpline
-(kx=ky=1) interpolants — the same data the TPU pipeline gathers — so any
+(kx=ky=1) interpolants — the same data the JAX pipeline gathers — so any
 statistical divergence between the two chains isolates implementation error
 rather than input differences.
 """

@@ -1,4 +1,4 @@
-"""Whole-chain statistical parity: the full TPU pipeline (vectorized seeding
+"""Whole-chain statistical parity: the full JAX pipeline (vectorized seeding
 -> fused RK4 scan -> filters -> vmax) against an independent sequential
 NumPy/scipy reference chain (solve_ivp RK45, scalar spline physics —
 tests/reference_chain.py) on the same synthetic environment.
@@ -12,7 +12,7 @@ test_reference_differential; this test catches compounding biases those
 cannot.
 
 Sample sizes and thresholds (round-3 ratchet, VERDICT r2 item 3):
-N_REF_SEEDS=40000 yields ~1.5k reference tracks in ~7 min; 20 TPU launches
+N_REF_SEEDS=40000 yields ~1.5k reference tracks in ~7 min; 20 JAX launches
 of 8192 yield ~3.5k.  The two-sample KS 1% critical value at those sizes
 is ~0.050; we assert < 0.06 (1.2x critical).  The 105k-seed offline report
 (docs/chain_parity.json, tools/chain_parity_report.py) pins the same
@@ -45,7 +45,7 @@ pytestmark = pytest.mark.slow  # whole-chain statistical parity at ratcheted sam
 
 CFG = Namelist(seed_batch=8192)
 N_REF_SEEDS = 40000      # counted seeds for the sequential chain (~7 min)
-N_TPU_LAUNCHES = 20
+N_LAUNCHES = 20
 KS_THRESH = 0.06         # 1.2x the ~0.050 1% critical at these sizes
 KS_LANDFALL_THRESH = 0.20
 
@@ -92,7 +92,7 @@ def populations():
     lmis, lat0s, months, poss, pdis, lfs = [], [], [], [], [], []
     spm = np.zeros((n_basins, 12))
     n_counted = n_kept = 0
-    for i in range(N_TPU_LAUNCHES):
+    for i in range(N_LAUNCHES):
         tr, meta = pipeline._simulate_batch(
             jax.random.fold_in(jax.random.key(1), i), pack, CFG, 'GL',
             CFG.seed_batch, 2048, jnp.int32(0))
@@ -117,7 +117,7 @@ def populations():
                         np.asarray(meta['month'])[cm] - 1), 1.0)
         n_counted += int(cm.sum())
         n_kept += int(np.asarray(meta['keep']).sum())
-    tpu = {
+    ours = {
         'lmi': np.concatenate(lmis),
         'lat0': np.concatenate(lat0s),
         'month': np.concatenate(months),
@@ -127,42 +127,42 @@ def populations():
         'spm': spm,
         'survival': n_kept / n_counted,
     }
-    assert ref['lmi'].size > 1000 and tpu['lmi'].size > 2500
-    return ref, tpu
+    assert ref['lmi'].size > 1000 and ours['lmi'].size > 2500
+    return ref, ours
 
 
 def test_lmi_distribution(populations):
-    ref, tpu = populations
-    ks = ks_2samp(ref['lmi'], tpu['lmi'])
+    ref, ours = populations
+    ks = ks_2samp(ref['lmi'], ours['lmi'])
     assert ks.statistic < KS_THRESH, (ks.statistic, ks.pvalue)
 
 
 def test_genesis_latitude(populations):
-    ref, tpu = populations
-    ks = ks_2samp(ref['lat0'], tpu['lat0'])
+    ref, ours = populations
+    ks = ks_2samp(ref['lat0'], ours['lat0'])
     assert ks.statistic < KS_THRESH, (ks.statistic, ks.pvalue)
 
 
 def test_pdi_distribution(populations):
     """Per-track power-dissipation index (reference notebook cell 16)."""
-    ref, tpu = populations
-    ks = ks_2samp(ref['pdi'], tpu['pdi'])
+    ref, ours = populations
+    ks = ks_2samp(ref['pdi'], ours['pdi'])
     assert ks.statistic < KS_THRESH, (ks.statistic, ks.pvalue)
 
 
 def test_landfall_vmax(populations):
     """Intensity at first landfall — the risk-relevant tail."""
-    ref, tpu = populations
-    assert ref['lf'].size > 50 and tpu['lf'].size > 120, \
-        (ref['lf'].size, tpu['lf'].size)
-    ks = ks_2samp(ref['lf'], tpu['lf'])
+    ref, ours = populations
+    assert ref['lf'].size > 50 and ours['lf'].size > 120, \
+        (ref['lf'].size, ours['lf'].size)
+    ks = ks_2samp(ref['lf'], ours['lf'])
     assert ks.statistic < KS_LANDFALL_THRESH, (ks.statistic, ks.pvalue)
 
 
 def test_seasonal_cycle(populations):
-    ref, tpu = populations
+    ref, ours = populations
     h_r = np.bincount(ref['month'], minlength=13)[1:] / ref['month'].size
-    h_t = np.bincount(tpu['month'], minlength=13)[1:] / tpu['month'].size
+    h_t = np.bincount(ours['month'], minlength=13)[1:] / ours['month'].size
     tv = 0.5 * np.abs(h_r - h_t).sum()
     assert tv < 0.09, tv
 
@@ -171,17 +171,17 @@ def test_seeds_per_month(populations):
     """Counted seeds per (basin, month) — the seeds_per_month output
     variable's distribution (util/compute.py:163-175).  TV noise floor at
     these counts is ~0.02."""
-    ref, tpu = populations
+    ref, ours = populations
     tv = 0.5 * np.abs(ref['spm'] / ref['spm'].sum()
-                      - tpu['spm'] / tpu['spm'].sum()).sum()
+                      - ours['spm'] / ours['spm'].sum()).sum()
     assert tv < 0.05, tv
 
 
 def test_track_density(populations):
-    ref, tpu = populations
+    ref, ours = populations
     bins = [np.arange(0, 361, 10), np.arange(-90, 91, 10)]
     H_r, _, _ = np.histogram2d(ref['pos'][:, 0], ref['pos'][:, 1], bins=bins)
-    H_t, _, _ = np.histogram2d(tpu['pos'][:, 0], tpu['pos'][:, 1], bins=bins)
+    H_t, _, _ = np.histogram2d(ours['pos'][:, 0], ours['pos'][:, 1], bins=bins)
     overlap = np.minimum(H_r / H_r.sum(), H_t / H_t.sum()).sum()
     assert overlap > 0.85, overlap
 
@@ -190,6 +190,6 @@ def test_survival_rate(populations):
     """Survivors per counted seed — the frequency signal (Gamma in the
     reference's analysis notebook, cell 11).  Combined sampling SE at
     these sizes is ~3%; the offline 105k report pins the central value."""
-    ref, tpu = populations
-    ratio = tpu['survival'] / ref['survival']
-    assert 0.85 < ratio < 1.18, (ref['survival'], tpu['survival'])
+    ref, ours = populations
+    ratio = ours['survival'] / ref['survival']
+    assert 0.85 < ratio < 1.18, (ref['survival'], ours['survival'])

@@ -3,7 +3,7 @@ machinery (VERDICT r4 item 8).
 
 The reference's rejection loop (util/compute.py:134-175) degrades
 gracefully when genesis collapses — it just spins proposing seeds.  The
-TPU pipeline layers three speculative mechanisms on top (integrate-cap
+JAX pipeline layers three speculative mechanisms on top (integrate-cap
 compaction, the recompaction schedule, the quota prefix), each with a
 fallback chain; these tests drive the WHOLE chain in one run — prefix
 miss -> tuned relaunch -> cap overflow -> uncapped fallback -> bump_caps —
@@ -79,7 +79,7 @@ def test_full_fallback_chain_exact(dispatch_log, caplog):
     assert cq is not None and cq.integrate_width == 256
 
     adapt = {'cfg': cfg}
-    with caplog.at_level(logging.WARNING, logger='tc_risk_tpu'):
+    with caplog.at_level(logging.WARNING, logger='tc_risk'):
         yt = pipeline.run_tracks_year(KEY, pack, cfg, 'GL', 0,
                                       n_tracks=quota, adapt=adapt)
 

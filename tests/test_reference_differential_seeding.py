@@ -22,6 +22,7 @@ as a distribution shift.
 
 from __future__ import annotations
 
+import os
 import sys
 import textwrap
 import types
@@ -76,6 +77,8 @@ class _CountingVpot:
 
 @pytest.fixture(scope='module')
 def populations():
+    if not os.path.isdir(REF):
+        pytest.skip(f'reference source tree {REF} is not present')
     sys.path.insert(0, REF)
     try:
         import namelist as ref_namelist

@@ -1,9 +1,9 @@
-"""On-chip A/B of the speculative quota prefix (pipeline.quota_cfg).
+"""On-device A/B of the speculative quota prefix (pipeline.quota_cfg).
 
 Times the production steady-state year loop (run_tracks_year with the
-2-deep prefetch pipelining, exactly bench.py's sim-years measurement) with
-quota_prefix on vs off on the same auto-tuned config, plus the raw widths,
-so docs/performance.md can carry measured numbers.
+2-deep prefetch pipelining, whose every year ends in a host fetch of its
+tracks) with quota_prefix on vs off on the same auto-tuned config, plus
+the raw widths.
 
 Usage: python tools/bench_quota.py [n_years]
 """
@@ -14,17 +14,12 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+import jax  # noqa: E402
 
-try:
-    from tools import _tpu_cache  # noqa: F401
-except ImportError:
-    pass
-import numpy as np
-
-from tropical_cyclone_risk_tpu.config import Namelist
-from tropical_cyclone_risk_tpu.models import pipeline
-from tropical_cyclone_risk_tpu.models.fields import synthetic_pack
+from tropical_cyclone_risk_tpu.config import Namelist  # noqa: E402
+from tropical_cyclone_risk_tpu.models import pipeline  # noqa: E402
+from tropical_cyclone_risk_tpu.models.fields import synthetic_pack  # noqa: E402
+from tropical_cyclone_risk_tpu.utils import compile_cache  # noqa: E402
 
 
 def time_years(cfg, pack, n_years, label):
@@ -52,6 +47,8 @@ def time_years(cfg, pack, n_years, label):
 
 
 def main():
+    compile_cache.enable()
+    print(f'device: {jax.devices()[0].device_kind}', flush=True)
     n_years = int(sys.argv[1]) if len(sys.argv) > 1 else 8
     cfg = Namelist().replace(seed_batch=131072)
     pack = jax.device_put(synthetic_pack(cfg, n_planes=12, nlat=181,

@@ -1,7 +1,7 @@
-"""Offline diagnostics for a chain-parity TPU dump vs a reference cache.
+"""Offline diagnostics for a chain-parity dump of this framework vs a reference cache.
 
 Three questions about an observed KS excess (tools/chain_parity_report.py):
-1. Null calibration — split the TPU side into even/odd launches: same
+1. Null calibration — split the JAX side into even/odd launches: same
    machinery, same distribution by construction, so the split KS must sit
    at its own critical's noise floor or the criticals are understated.
 2. Deviation shape — where along each statistic's axis the two CDFs
@@ -9,7 +9,7 @@ Three questions about an observed KS excess (tools/chain_parity_report.py):
 3. Moment table — mean/median/tails per side, to name the bias in
    physical units.
 
-Usage: python tools/chain_parity_diag.py /tmp/tpu_240k.npz /tmp/ref_chain_240k.npz
+Usage: python tools/chain_parity_diag.py ours_240k.npz ref_chain_240k.npz
 """
 import sys
 
@@ -32,21 +32,21 @@ def crit(n1, n2, alpha=1.63):
 
 
 def main():
-    tpu = np.load(sys.argv[1])
+    ours = np.load(sys.argv[1])
     ref = np.load(sys.argv[2])
-    launch = tpu['launch']
+    launch = ours['launch']
     for name in ('lmi', 'lat0', 'pdi'):
-        t, r = tpu[name], ref[name]
+        t, r = ours[name], ref[name]
         if name == 'lat0':
             t, r = np.abs(t), np.abs(r)
         ev, od = t[launch % 2 == 0], t[launch % 2 == 1]
         d0 = ks_2samp(ev, od).statistic
         d, x, gap = ks_where(t, r)
-        print(f'{name}: KS(tpu,ref)={d:.4f} (crit {crit(t.size, r.size):.4f})'
+        print(f'{name}: KS(ours,ref)={d:.4f} (crit {crit(t.size, r.size):.4f})'
               f' at x={x:.3g} gap={gap:+.4f} | null even/odd KS={d0:.4f} '
               f'(crit {crit(ev.size, od.size):.4f})')
         q = [5, 25, 50, 75, 95]
-        print(f'   tpu n={t.size} mean={t.mean():.3f} '
+        print(f'   ours n={t.size} mean={t.mean():.3f} '
               f'pct{q}={np.percentile(t, q).round(3)}')
         print(f'   ref n={r.size} mean={r.mean():.3f} '
               f'pct{q}={np.percentile(r, q).round(3)}')

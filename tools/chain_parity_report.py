@@ -1,5 +1,5 @@
 """Offline whole-chain parity report at larger sample size than the CI
-test (tests/test_chain_parity.py): the full TPU pipeline vs the
+test (tests/test_chain_parity.py): the full JAX pipeline vs the
 sequential solve_ivp reference chain on the same synthetic environment.
 
 Usage:  JAX_PLATFORMS=cpu python tools/chain_parity_report.py \
@@ -64,33 +64,31 @@ def main(argv=None):
     ap.add_argument('--launches', type=int, default=6)
     ap.add_argument('--json', default=None)
     ap.add_argument('--stride', type=int, default=None,
-                    help='field_sample_stride for the TPU-pipeline side '
+                    help='field_sample_stride for the JAX-pipeline side '
                          '(default: the config default; the reference '
                          'chain is stride-independent)')
-    ap.add_argument('--tpu-dump', default=None,
-                    help='npz path: dump the per-launch TPU-side aggregates '
+    ap.add_argument('--jax-dump', default=None,
+                    help='npz path: dump the per-launch JAX-side aggregates '
                          '(lmi/lat0/pdi + launch index) for offline '
                          'diagnostics — null-calibration splits, CDF '
                          'deviation shape')
     ap.add_argument('--exact-stage-fields', action='store_true',
-                    help='rk_exact_stage_fields=True on the TPU side: '
+                    help='rk_exact_stage_fields=True on the JAX side: '
                          'per-RK-stage field sampling AND per-eval wind '
                          'coloring — the maximal-fidelity RK4, isolating '
                          'the frozen-fields/coloring-cadence deviations')
     ap.add_argument('--rk-substeps', type=int, default=None,
-                    help='rk_substeps on the TPU side (solve_ivp-accuracy '
+                    help='rk_substeps on the JAX side (solve_ivp-accuracy '
                          'isolator)')
     ap.add_argument('--ref-cache', default=None,
                     help='npz path: save the reference-chain aggregates on '
                          'first run, reuse them on later runs — the '
                          'sequential solve_ivp side dominates the wall '
                          'time and is independent of --stride, so stride '
-                         'sweeps only pay the TPU side')
+                         'sweeps only pay the JAX side')
     args = ap.parse_args(argv)
 
     import jax
-    if jax.default_backend() not in ('cpu', 'tpu'):
-        pass
     import jax.numpy as jnp
     from scipy.stats import ks_2samp
 
@@ -137,7 +135,7 @@ def main(argv=None):
 
     n_basins = ref_spm.shape[0]
     lmis, lat0s, months, poss, pdis, lfs = [], [], [], [], [], []
-    tpu_spm = np.zeros((n_basins, 12))
+    jax_spm = np.zeros((n_basins, 12))
     n_counted = n_kept = 0
     for i in range(args.launches):
         tr, meta = pipeline._simulate_batch(
@@ -163,23 +161,23 @@ def main(argv=None):
         cm = np.asarray(meta['counted'])
         mm = np.asarray(meta['month'])
         bm = np.asarray(meta['basin_idx'])
-        np.add.at(tpu_spm, (bm[cm], mm[cm] - 1), 1.0)
+        np.add.at(jax_spm, (bm[cm], mm[cm] - 1), 1.0)
         n_counted += int(cm.sum())
         n_kept += k
-    tpu_lmi = np.concatenate(lmis)
-    tpu_lat0 = np.concatenate(lat0s)
-    tpu_month = np.concatenate(months)
-    tpu_pos = np.concatenate(poss)
-    tpu_pdi = np.concatenate(pdis)
-    tpu_lf = np.array(lfs)
-    tpu_surv = n_kept / n_counted
-    if args.tpu_dump:
+    jax_lmi = np.concatenate(lmis)
+    jax_lat0 = np.concatenate(lat0s)
+    jax_month = np.concatenate(months)
+    jax_pos = np.concatenate(poss)
+    jax_pdi = np.concatenate(pdis)
+    jax_lf = np.array(lfs)
+    jax_surv = n_kept / n_counted
+    if args.jax_dump:
         np.savez_compressed(
-            args.tpu_dump, lmi=tpu_lmi, lat0=tpu_lat0, pdi=tpu_pdi,
-            month=tpu_month,
+            args.jax_dump, lmi=jax_lmi, lat0=jax_lat0, pdi=jax_pdi,
+            month=jax_month,
             launch=np.concatenate([np.full(a.size, i, np.int32)
                                    for i, a in enumerate(lmis)]))
-        print(f'TPU-side aggregates dumped to {args.tpu_dump}', flush=True)
+        print(f'JAX-side aggregates dumped to {args.jax_dump}', flush=True)
 
     def density(pos):
         h, _, _ = np.histogram2d(pos[:, 1], pos[:, 0] % 360.0,
@@ -187,41 +185,41 @@ def main(argv=None):
                                        np.arange(0, 364, 4.0)))
         return h / h.sum()
 
-    p, q = density(ref_pos), density(tpu_pos)
+    p, q = density(ref_pos), density(jax_pos)
     month_tv = 0.5 * np.abs(
         np.bincount(ref_month.astype(int), minlength=13)[1:] / ref_month.size
-        - np.bincount(tpu_month.astype(int), minlength=13)[1:]
-        / tpu_month.size).sum()
+        - np.bincount(jax_month.astype(int), minlength=13)[1:]
+        / jax_month.size).sum()
 
     spm_tv = 0.5 * np.abs(ref_spm / ref_spm.sum()
-                          - tpu_spm / tpu_spm.sum()).sum()
+                          - jax_spm / jax_spm.sum()).sum()
 
     def crit(n1, n2):
         return round(1.63 * np.sqrt((n1 + n2) / (n1 * n2)), 4)
 
     report = {
         'n_ref_tracks': int(ref_lmi.size),
-        'n_tpu_tracks': int(tpu_lmi.size),
-        'ks_lmi': round(float(ks_2samp(ref_lmi, tpu_lmi).statistic), 4),
+        'n_tpu_tracks': int(jax_lmi.size),
+        'ks_lmi': round(float(ks_2samp(ref_lmi, jax_lmi).statistic), 4),
         'ks_genesis_lat': round(float(ks_2samp(np.abs(ref_lat0),
-                                               np.abs(tpu_lat0)).statistic),
+                                               np.abs(jax_lat0)).statistic),
                                 4),
-        'ks_pdi': round(float(ks_2samp(ref_pdi, tpu_pdi).statistic), 4),
+        'ks_pdi': round(float(ks_2samp(ref_pdi, jax_pdi).statistic), 4),
         'ks_landfall_vmax': round(float(
-            ks_2samp(ref_lf, tpu_lf).statistic), 4),
+            ks_2samp(ref_lf, jax_lf).statistic), 4),
         'n_ref_landfalls': int(ref_lf.size),
-        'n_tpu_landfalls': int(tpu_lf.size),
+        'n_tpu_landfalls': int(jax_lf.size),
         'seasonal_total_variation': round(float(month_tv), 4),
         'seeds_per_month_total_variation': round(float(spm_tv), 4),
         'n_ref_counted_seeds': int(ref_spm.sum()),
-        'n_tpu_counted_seeds': int(tpu_spm.sum()),
+        'n_tpu_counted_seeds': int(jax_spm.sum()),
         'track_density_overlap': round(float(np.minimum(p, q).sum()), 4),
         'survival_ref': round(float(ref_surv), 5),
-        'survival_tpu': round(float(tpu_surv), 5),
-        'survival_ratio': round(float(tpu_surv / ref_surv), 4),
-        'ks_1pct_critical': crit(ref_lmi.size, tpu_lmi.size),
+        'survival_tpu': round(float(jax_surv), 5),
+        'survival_ratio': round(float(jax_surv / ref_surv), 4),
+        'ks_1pct_critical': crit(ref_lmi.size, jax_lmi.size),
         'ks_1pct_critical_landfall': crit(max(ref_lf.size, 1),
-                                          max(tpu_lf.size, 1)),
+                                          max(jax_lf.size, 1)),
     }
     out = json.dumps(report, indent=1)
     if args.json:

@@ -112,10 +112,11 @@ def write_static(ws):
                          'month': np.arange(1.0, 13.0)})
 
 
-def main():
-    ws = sys.argv[1]
-    y0 = int(sys.argv[2]) if len(sys.argv) > 2 else 2016
-    y1 = int(sys.argv[3]) if len(sys.argv) > 3 else 2021
+def make_workspace(ws, y0=2016, y1=2021, tracks_per_year=20,
+                   seed_batch=16384):
+    """Write static fields, years y0..y1 of raw fields and a namelist.py
+    under ws; returns the namelist path.  Every array comes from one
+    generator with the fixed seed 0, so a workspace is reproducible."""
     os.makedirs(f'{ws}/raw', exist_ok=True)
     os.makedirs(f'{ws}/out', exist_ok=True)
     rng = np.random.default_rng(0)
@@ -123,7 +124,8 @@ def main():
     for year in range(y0, y1 + 1):
         write_year(f'{ws}/raw', year, rng)
         print('wrote', year, flush=True)
-    with open(f'{ws}/namelist.py', 'w') as f:
+    fn = f'{ws}/namelist.py'
+    with open(fn, 'w') as f:
         f.write(f"""
 base_directory = {ws + '/raw'!r}
 output_directory = {ws + '/out'!r}
@@ -134,15 +136,23 @@ start_year = {y0}
 start_month = 1
 end_year = {y1}
 end_month = 12
-tracks_per_year = 20
+tracks_per_year = {tracks_per_year}
 fn_land = {ws + '/static/land.nc'!r}
 fn_bathy = {ws + '/static/bathymetry.nc'!r}
 fn_mld = {ws + '/static/mld.nc'!r}
 fn_strat = {ws + '/static/strat.nc'!r}
 mask_dir = {ws + '/land'!r}
-seed_batch = 16384
+seed_batch = {seed_batch}
 """)
-    print('workspace ready:', ws)
+    print('workspace ready:', ws, flush=True)
+    return fn
+
+
+def main():
+    ws = sys.argv[1]
+    y0 = int(sys.argv[2]) if len(sys.argv) > 2 else 2016
+    y1 = int(sys.argv[3]) if len(sys.argv) > 3 else 2021
+    make_workspace(ws, y0, y1)
 
 
 if __name__ == '__main__':

@@ -11,7 +11,7 @@
 # counts bounded; observed crashes cluster right AFTER test_pipeline_stats
 # in single-process runs.
 #
-# Two mechanical fences (VERDICT r4 item 6):
+# Two mechanical fences:
 #   - TC_COMPILE_BUDGET: tests/conftest.py counts real backend compiles
 #     per process and ERRORS the crossing test, so group drift toward the
 #     crash zone is loud, not silent.  Budget = 850 vs 2026-08-19 measured
@@ -32,7 +32,7 @@ GROUPS_LIST=(
   "tests/test_pipeline_stats.py tests/test_quota_stress.py"
   "tests/test_preprocess.py tests/test_reader_fuzz.py tests/test_reference_differential.py tests/test_reference_differential_fast.py tests/test_reference_differential_seeding.py tests/test_seeding_parity.py"
   "tests/test_sharding.py"
-  "tests/test_simulator.py tests/test_thermo.py"
+  "tests/test_simulator.py tests/test_thermo.py tests/test_chip_smoke.py"
 )
 
 # --- group coverage fence: every tests/test_*.py in exactly one group ----

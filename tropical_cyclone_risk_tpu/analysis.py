@@ -57,7 +57,7 @@ def open_tracks(paths: Sequence[str]) -> TrackEnsemble:
     empty = [p for p in paths if os.path.getsize(p) == 0]
     if empty:
         import logging
-        logging.getLogger('tc_risk_tpu').warning(
+        logging.getLogger('tc_risk').warning(
             'skipping %d zero-byte track file(s) (crashed-run name claims; '
             'delete to reuse the ensemble slot): %s', len(empty), empty)
         paths = [p for p in paths if p not in set(empty)]

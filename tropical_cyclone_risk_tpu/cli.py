@@ -16,6 +16,7 @@ from tropical_cyclone_risk_tpu import runtime
 from tropical_cyclone_risk_tpu.config import Namelist, load_namelist_py
 from tropical_cyclone_risk_tpu.models import pack_builder
 from tropical_cyclone_risk_tpu.preprocess import land_masks, thermo_driver, winds
+from tropical_cyclone_risk_tpu.utils import compile_cache
 
 
 def compute_downscaling_inputs(cfg: Namelist, overlap: bool = True) -> None:
@@ -28,8 +29,8 @@ def compute_downscaling_inputs(cfg: Namelist, overlap: bool = True) -> None:
     on-chip CAPE-PI dispatches over ~5% of the bytes.  The reference
     serializes the stages (util/compute.py:24-35) and fans processes
     WITHIN each; here thermo runs in a worker thread while winds streams
-    in the calling thread — file IO and the device relay both release the
-    GIL, so the disk and the chip work concurrently.  ``overlap=False``
+    in the calling thread — file IO and device execution both release the
+    GIL, so the disk and the device work concurrently.  ``overlap=False``
     (or env TC_SERIAL_PREPROC=1) restores the serial order for A/B
     timing.  Both stages stay individually idempotent, so a crash in one
     leaves the other's finished file reusable."""
@@ -79,7 +80,7 @@ def compute_downscaling_inputs(cfg: Namelist, overlap: bool = True) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description='TPU-native tropical cyclone downscaling '
+        description='Tropical cyclone downscaling in JAX '
                     '(reference CLI: run.py BASIN)')
     ap.add_argument('basin', help='basin ID (e.g. GL, NA, WP, ...)')
     ap.add_argument('--namelist', default=None,
@@ -98,6 +99,7 @@ def main(argv=None) -> int:
     ap.add_argument('--trace-dir', default=None,
                     help='write a jax.profiler trace of the simulation')
     args = ap.parse_args(argv)
+    compile_cache.enable()
 
     cfg = load_namelist_py(args.namelist) if args.namelist else Namelist()
 

@@ -119,7 +119,11 @@ def _read_h5_var(obj, fill, missing, sf, ao) -> np.ndarray:
 
 
 def _read_h5(path: str, variables=None) -> Dataset:
-    import h5py
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f'{path} is NetCDF4 (HDF5); reading it needs h5py, '
+                          'the "netcdf4" extra') from e
 
     ds = Dataset()
     with h5py.File(path, 'r') as f:
@@ -561,6 +565,8 @@ def read(path: str, variables=None) -> Dataset:
         raise ValueError(
             f'{path}: corrupted or truncated NetCDF file '
             f'(ValueError: {e}); re-download or regenerate it') from e
+    except ImportError:
+        raise                      # a missing optional reader, not the file
     except Exception as e:
         raise ValueError(
             f'{path}: corrupted or truncated NetCDF file '

@@ -48,8 +48,10 @@ def gen_tracks(pack: FieldPack, cfg: Namelist, basin_id: str,
         polar = jnp.abs(lat) >= 80.0
         wnds = jnp.where(polar[:, None], 0.0, wnds)
         w_lat = jnp.cos(jnp.deg2rad(lat))
-        u = jnp.einsum('nl,l->n', wnds[:, 0::2], coefs) + cfg.u_beta * w_lat
-        v = jnp.einsum('nl,l->n', wnds[:, 1::2], coefs) \
+        hi = jax.lax.Precision.HIGHEST
+        u = (jnp.einsum('nl,l->n', wnds[:, 0::2], coefs, precision=hi)
+             + cfg.u_beta * w_lat)
+        v = jnp.einsum('nl,l->n', wnds[:, 1::2], coefs, precision=hi) \
             + jnp.sign(lat) * cfg.v_beta * w_lat
         u = jnp.where(polar, 0.0, u)
         v = jnp.where(polar, 0.0, v)

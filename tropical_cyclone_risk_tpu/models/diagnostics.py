@@ -134,7 +134,7 @@ def vmax_step(cfg, lat, tc_v, env_wnds, ut, vt):
     in-scan vmax path (Namelist.vmax_in_scan) evaluates this once per step
     while positions and winds are still in registers, replacing the
     standalone [T, m] axi_to_max_wind_raw pass that re-read every launch
-    buffer from HBM."""
+    buffer from device memory."""
     iu2, iv2, iu8, iv8 = _shear_channels(cfg)
     G = jnp.minimum(1.0, 0.8 + 0.35 * (1.0 + jnp.tanh((lat - 35.0) / 10.0)))
     u_shr = env_wnds[..., iu2] - env_wnds[..., iu8]

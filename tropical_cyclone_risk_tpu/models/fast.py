@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import jax
 import jax.numpy as jnp
 
 from tropical_cyclone_risk_tpu import constants
@@ -67,7 +68,8 @@ def color_winds_given_f(cfg: Namelist, stats, f):
     mean = stats[:, :W]
     cov = chol.lower_tri_to_full(stats[:, W:], W)
     L, ok = chol.cholesky_unrolled(cov)
-    wnds = mean + jnp.einsum('nij,nj->ni', L, f)
+    wnds = mean + jnp.einsum('nij,nj->ni', L, f,
+                             precision=jax.lax.Precision.HIGHEST)
     # non-PD covariance -> zero winds (reference zero-fallback,
     # track/bam_track.py:123-126)
     return jnp.where(ok[:, None], wnds, 0.0)
@@ -227,8 +229,9 @@ def bam_velocity(cfg: Namelist, lat, v, wnds_raw):
     wnds = jnp.where(polar[:, None], 0.0, wnds_raw)
     coefs = steering_coefs(cfg, v)
     w_lat = jnp.cos(jnp.deg2rad(lat))
-    u_steer = jnp.einsum('nl,nl->n', wnds[:, 0::2], coefs)
-    v_steer = jnp.einsum('nl,nl->n', wnds[:, 1::2], coefs)
+    hi = jax.lax.Precision.HIGHEST
+    u_steer = jnp.einsum('nl,nl->n', wnds[:, 0::2], coefs, precision=hi)
+    v_steer = jnp.einsum('nl,nl->n', wnds[:, 1::2], coefs, precision=hi)
     u_bam = jnp.where(polar, 0.0, u_steer + cfg.u_beta * w_lat)
     v_bam = jnp.where(polar, 0.0,
                       v_steer + jnp.sign(lat) * cfg.v_beta * w_lat)

@@ -1,4 +1,4 @@
-"""HBM-resident environment field packs.
+"""Device-resident environment field packs.
 
 The reference builds dozens of scipy spline objects per month per basin
 (track/bam_track.py:76-91; intensity/coupled_fast.py:217-225; util/
@@ -56,8 +56,7 @@ class GatherStacks(NamedTuple):
     the same (lon, lat, plane) — fusing them into one channel stack turns
     two 4-corner gathers into one, and corner-packing (ops.interp.
     pack_corners) turns the four corner rows of each bilinear lookup into a
-    single gathered row: the TPU XLA gather is row-rate-bound, so this is
-    the difference between 8+ gather rows and 1-2 per seed per step
+    single gathered row: 1-2 gather rows per seed per step instead of 8+
     (1 when land/bathy merge into the cell stack, see build_stacks).
     """
     grid: 'UniformGrid'
@@ -80,9 +79,7 @@ def build_stacks(pack: FieldPack) -> GatherStacks:
 
     When land and bathymetry live on the atmospheric grid (no resolution to
     lose), they are merged into the per-plane cell stack so the step loop
-    issues ONE gather row per seed — the XLA gather is row-rate-bound
-    (~10 ns/row regardless of width, tools/bench_gather_micro.py), so row
-    count is the whole cost.  With a higher-resolution land mask (the
+    issues ONE gather row per seed.  With a higher-resolution land mask (the
     production 0.125-degree file) they stay a separate gather to preserve
     coastline resolution."""
     from tropical_cyclone_risk_tpu.ops.interp import pack_corners
@@ -116,7 +113,7 @@ def crop_pack(pack: FieldPack, cfg: Namelist, basin_id: str,
     bounds+margin are never sampled.  The reference crops the same way when
     building its per-basin splines (basins.transform_global_field,
     util/basins.py:57-75).  Matters with corner packing: a 40-year global
-    cell stack is ~10 GB HBM, a basin crop ~1/6 of that.  Land/bathy/basin
+    cell stack is ~10 GB of device memory, a basin crop ~1/6 of that.  Land/bathy/basin
     masks keep their own grids (unaffected); GL returns the pack unchanged.
     """
     from tropical_cyclone_risk_tpu.utils import basins as basins_mod

@@ -1,4 +1,4 @@
-"""Assemble the HBM-resident FieldPack from preprocessing outputs.
+"""Assemble the device-resident FieldPack from preprocessing outputs.
 
 Reference equivalent: the per-month interpolant construction at the top of
 run_tracks (util/compute.py:66-121) plus BetaAdvectionTrack._load_wnd_stat

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
 
 
@@ -76,4 +77,5 @@ def nearest_psd(cov: jnp.ndarray, jitter: float = 1e-8) -> jnp.ndarray:
     sym = 0.5 * (cov + jnp.swapaxes(cov, -1, -2))
     w, v = jnp.linalg.eigh(sym)
     w = jnp.maximum(w, jitter)
-    return jnp.einsum('...ij,...j,...kj->...ik', v, w, v)
+    return jnp.einsum('...ij,...j,...kj->...ik', v, w, v,
+                      precision=jax.lax.Precision.HIGHEST)

@@ -2,18 +2,11 @@
 
 The launch idiom "move the masked slots to the front, each class in slot
 order" appeared everywhere as ``argsort(where(mask, slot, slot + n))[:w]``
-— an O(n log^2 n) bitonic sort on TPU.  The same permutation is one
-prefix-sum plus one scatter (O(n)).  Two measurement tools disagreed on
-the win: floor-amortized micro-timing (tools/bench_order_micro.py) put
-the argsorts at several ms per launch across the ~25 call sites, while
-whole-program ablation (docs/performance.md r4 decomposition) measured
-them at the relay floor — XLA fuses either idiom into the surrounding
-gathers, so the launch-level difference is below run noise and the
-micro-timing's isolated-op framing overstated it.  Since round 5 every
-production call site (integrate compaction, the re-compaction
-boundaries, the seeding retry rounds, survivor compaction) uses this
-helper anyway: identical permutation, pinned bit-for-bit, and O(n) work
-is the right asymptotic for any future wider batch.
+— an O(n log n) sort.  The same permutation is one prefix-sum plus one
+scatter (O(n)).  Every production call site (integrate compaction, the
+re-compaction boundaries, the seeding retry rounds, survivor compaction)
+uses this helper: identical permutation, pinned bit-for-bit, and O(n)
+work is the right asymptotic for any wider batch.
 
 Identity: the keys ``where(mask, slot, slot + n)`` are distinct, so the
 argsort is unique and equals this rank construction exactly — masked slots

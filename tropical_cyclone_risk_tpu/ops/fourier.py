@@ -5,14 +5,16 @@ sine series with random phases and amplitudes ~ n^-1.5 (geostrophic-turbulence
 KE spectrum), evaluated on a precomputed hourly grid and then re-interpolated
 with interp1d inside the RHS (track/bam_track.py:127,159).
 
-TPU-native form: draw phases once per seed, precompute the phase-rotated
+Batched form: draw phases once per seed, precompute the phase-rotated
 coefficients A = c_n cos(2 pi phi), B = c_n sin(2 pi phi), and evaluate
 
     F_i(t) = sum_n A_in sin(w_n t) + B_in cos(w_n t),    w_n = 2 pi n / T
 
 exactly at any t.  Per integration step this is one [n_seeds, C, N] x [N]
 contraction — no interpolation error, no per-seed transcendentals beyond the
-shared sin/cos basis of 15 frequencies.
+shared sin/cos basis of 15 frequencies.  The contractions run at
+``Precision.HIGHEST`` so they stay float32 on backends that would otherwise
+use reduced-precision matrix units (TF32 on NVIDIA GPUs).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 N_FOURIER = 15     # number of sine components (track/bam_track.py:112)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class FourierSeries(NamedTuple):
@@ -37,33 +40,32 @@ class FourierSeries(NamedTuple):
         phase = w * t if jnp.ndim(t) == 0 else w[:, None] * t[None, :]
         s = jnp.sin(phase)
         c = jnp.cos(phase)
-        return self.A @ s + self.B @ c   # [..., C] (or [..., C, Nt])
+        return (jnp.matmul(self.A, s, precision=HIGHEST)
+                + jnp.matmul(self.B, c, precision=HIGHEST))  # [..., C(, Nt)]
 
     def evaluate_grid(self, t):
         """F on a time grid t [T] -> [T, ..., C], evaluated as one matmul
         over the component axis.  The integration scan precomputes this and
         streams [..., C] slices per step (scan xs), so the A/B coefficient
-        buffers — whose 15-wide minor axis pads to a full 128-lane tile on
-        TPU — are read once per launch instead of once per step."""
+        buffers are read once per launch instead of once per step."""
         w = 2.0 * jnp.pi * jnp.arange(1, N_FOURIER + 1,
                                       dtype=self.A.dtype) / self.T_s
         phase = t[:, None] * w[None, :]                     # [T, f]
         s = jnp.sin(phase)
         c = jnp.cos(phase)
-        return (jnp.einsum('tf,...cf->t...c', s, self.A) +
-                jnp.einsum('tf,...cf->t...c', c, self.B))
+        return (jnp.einsum('tf,...cf->t...c', s, self.A, precision=HIGHEST)
+                + jnp.einsum('tf,...cf->t...c', c, self.B, precision=HIGHEST))
 
 
 def take_leading(fs: FourierSeries, order: jnp.ndarray) -> FourierSeries:
     """Gather coefficient rows along the leading (seed) axis.
 
-    A TPU XLA gather of a [n, C, F] operand runs ~86 ns/row — the minor
-    [C, F] = [4, 15] pair tiles to an (8, 128) footprint that is mostly
-    padding — while the same bytes as a 2-D [n, C*F] operand gather at the
-    ~free 2-D row rate (tools/bench_take_layout.py).  The launch re-gathers
-    A/B at the integrate compaction and at every re-compaction boundary
-    (~330k rows/launch), so reshape-take-reshape here is worth ~25 ms of
-    an ~85 ms launch.  Values are identical (same rows, same bytes)."""
+    The [n, C, F] operands are gathered as 2-D [n, C*F] rows
+    (reshape-take-reshape): one contiguous row per seed instead of a
+    gather over a small, padded [C, F] minor pair.  The launch re-gathers
+    A/B at the integrate compaction and at every re-compaction boundary.
+    Whether the 2-D form still pays on the H100 is not measured.  Values
+    are identical (same rows, same bytes)."""
     n = fs.A.shape[0]
     tail = fs.A.shape[1:]
     g = lambda a: jnp.take(a.reshape(n, -1), order, axis=0).reshape(

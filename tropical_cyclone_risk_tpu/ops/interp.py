@@ -1,8 +1,8 @@
-"""Batched bilinear field interpolation for TPU.
+"""Batched bilinear field interpolation on the accelerator.
 
 This replaces the reference's per-point ``RectBivariateSpline(kx=1, ky=1).ev``
 calls (util/mat.py:142-173; track/bam_track.py:93-108; intensity/
-coupled_fast.py:35-58,126) with a single fused gather over packed HBM-resident
+coupled_fast.py:35-58,126) with a single fused gather over packed device-resident
 field stacks.  A kx=ky=1 RectBivariateSpline is exactly bilinear interpolation;
 outside the knot domain FITPACK clamps the evaluation point to the boundary
 (verified empirically), which we reproduce by clamping the continuous grid
@@ -141,10 +141,9 @@ def pack_corners(field):
 
     field [..., nlat, nlon, C] -> [..., nlat, nlon, 4*C] where channels are
     (c00, c01, c10, c11) = (y,x), (y,x+1), (y+1,x), (y+1,x+1), edge-clamped.
-    The TPU XLA gather is row-rate-bound (measured ~10-14 ns/row regardless
-    of width or dtype, tools/bench_gather_micro.py), so fetching one 4C-wide
-    row per query beats four C-wide rows by ~4x at the cost of 4x memory on
-    this derived stack.
+    One 4C-wide row per query replaces four C-wide rows, at the cost of 4x
+    memory on this derived stack: a win where the gather is bound by rows
+    rather than bytes.  Whether it pays on the H100 is not measured.
     """
     shift_x = jnp.concatenate([field[..., 1:, :], field[..., -1:, :]],
                               axis=-2)

@@ -1,4 +1,4 @@
-"""Potential intensity (CAPE-PI) on TPU.
+"""Potential intensity (CAPE-PI) on the accelerator.
 
 Reference equivalent: ``CAPE_PI_vectorized`` (thermo/thermo.py:266-412) and
 the transparent scalar ``CAPE_PI`` (thermo/thermo.py:144-256).  The reference

@@ -145,7 +145,7 @@ def invert_entropy_newton(p, s_ref, r_t=0.0, select_thermo: int = 1,
                           T0=250.0, iters: int = 25, use_pog: bool = False):
     """Solve s_sat(T, p, r_t) = s_ref for T by damped Newton iteration.
 
-    TPU-native replacement for the reference's BFGS minimization
+    Batched replacement for the reference's BFGS minimization
     (thermo/thermo.py:214-221) and the offline Nelder-Mead table generation
     (thermo/thermo.py:451-481).  s_sat is monotone increasing in T over the
     atmospheric range, so Newton from 250 K converges for all table entries.

@@ -4,7 +4,7 @@ The reference has no distributed backend at all (SURVEY.md section 5 —
 dask 'processes' on one machine is its only parallelism).  Here multi-host
 runs use jax.distributed: every host runs the same run_downscaling program,
 the seed mesh spans all global devices, integration stays communication-free,
-and the one compaction all-gather rides ICI within each slice / DCN across.
+and the one compaction all-gather crosses the host network.
 Host 0 writes the output file (tracks come back replicated).
 
 Usage (same command on every host):
@@ -29,22 +29,19 @@ from tropical_cyclone_risk_tpu.parallel.sharding import SEED_AXIS
 
 # Env vars that configure a coordinator when no explicit args are given
 # (jax.distributed.initialize reads these; cluster auto-detection beyond
-# them — SLURM/Cloud-TPU metadata — is probed via _cluster_detectable).
+# them — SLURM, Open MPI and other cluster environments — is probed via
+# _cluster_detectable).
 _COORD_ENV_VARS = ('JAX_COORDINATOR_ADDRESS', 'COORDINATOR_ADDRESS')
 
 
 def _already_initialized() -> bool:
     """Explicit client-state probe — never inspects exception text."""
-    try:
-        return bool(jax.distributed.is_initialized())
-    except AttributeError:      # older jax: fall back to the state object
-        from jax._src import distributed as _dist
-        return getattr(_dist.global_state, 'client', None) is not None
+    return bool(jax.distributed.is_initialized())
 
 
 def _cluster_detectable() -> bool:
     """True when JAX's cluster auto-detection would resolve a coordinator
-    (SLURM, Open MPI, Cloud TPU metadata, ...) with no explicit args."""
+    (SLURM, Open MPI, ...) with no explicit args."""
     try:
         from jax._src.clusters import ClusterEnv
         return any(c.is_env_present() for c in ClusterEnv._cluster_types)
@@ -56,7 +53,7 @@ def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
     """jax.distributed.initialize with env-var fallback (JAX reads
-    COORDINATOR_ADDRESS / cloud-TPU metadata when args are None).
+    COORDINATOR_ADDRESS or a detected cluster when args are None).
     Idempotent: a repeat call and a bare single-host call (no coordinator
     configured anywhere) are both no-ops, decided by explicit state and
     configuration probes — not by matching exception text, which JAX is

@@ -1,15 +1,15 @@
 """Multi-chip scaling: data parallelism over the seed axis.
 
 The reference scales by forking one OS process per simulated year over a
-16-worker dask pool (util/compute.py:223-230, namelist.py:34).  The TPU-native
-equivalent is a 1-D device mesh over the *seed* axis: seeds are fully
+16-worker dask pool (util/compute.py:223-230, namelist.py:34).  Here the
+equivalent is a flat 1-D device mesh over the *seed* axis: seeds are fully
 independent until the final survivor compaction, so the integration scan runs
-communication-free on every chip and only the tiny compaction step moves data
-over ICI (one all-gather of the keep mask + a cross-device take of the few
-surviving tracks).
+communication-free on every device and only the tiny compaction step moves
+data between devices (one all-gather of the keep mask + a cross-device take
+of the few surviving tracks).
 
 Environmental field packs are small (1-degree global monthly stacks, tens of
-MB) and are replicated into every chip's HBM.
+MB) and are replicated into every device's memory.
 """
 
 from __future__ import annotations

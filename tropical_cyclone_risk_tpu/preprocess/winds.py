@@ -66,9 +66,9 @@ def _monthly_stats(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     module docstring).
 
     Host-side numpy on purpose: this one-pass reduction is ~100 MFLOP per
-    month while the raw daily fields are ~60 MB/month — on a remote-attached
-    accelerator the transfer dwarfs the arithmetic (measured: the 6-year
-    device-side version spent ~400 s, almost all in host->device copies).
+    month while the raw daily fields are ~60 MB/month, so shipping them to
+    the device costs more than the arithmetic it would save.  A device-side
+    version over the H100's PCIe link is not measured.
 
     float32 throughout (r5): the ~30-sample moments differ from the earlier
     float64 accumulation by <3e-7 relative — below the reference's own

@@ -140,7 +140,7 @@ def run_downscaling(cfg: Namelist, basin_id: str, pack: FieldPack,
         if cfg.years_per_program > 1 and len(years) > 1:
             # steady-state path: batch 0 of years_per_program years fused
             # into one device program (pipeline._simulate_years, or its
-            # SPMD twin under a mesh) — one relay dispatch per group
+            # SPMD twin under a mesh) — one program dispatch per group
             # instead of per year; abnormal years (cap overflow, unfilled
             # quota) replay on the per-year loop inside the driver with
             # bit-identical results

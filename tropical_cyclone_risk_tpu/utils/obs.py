@@ -3,17 +3,18 @@
 Reference equivalent: bare print()s with wall-clock deltas
 (util/compute.py:25-35,269; run.py:11,17).  Here every phase reports through
 the standard logging module with a metrics dict, and any phase can be wrapped
-in a jax.profiler trace for TPU timeline analysis (SURVEY.md section 5).
+in a jax.profiler trace for device timeline analysis (SURVEY.md section 5).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import subprocess
 import time
 from typing import Dict, Optional
 
-log = logging.getLogger('tc_risk_tpu')
+log = logging.getLogger('tc_risk')
 if not log.handlers:
     _h = logging.StreamHandler()
     _h.setFormatter(logging.Formatter('[%(name)s %(levelname).1s] %(message)s'))
@@ -70,3 +71,25 @@ def maybe_profile(trace_dir: Optional[str]):
     with jax.profiler.trace(trace_dir):
         yield
     log.info('profiler trace written to %s', trace_dir)
+
+
+def require_gpu(what: str):
+    """The default JAX device, which must be a GPU: measurements and the
+    chip smoke test never fall back to another platform."""
+    import jax
+    dev = jax.devices()[0]
+    if dev.platform != 'gpu':
+        raise RuntimeError(
+            f'no GPU: JAX\'s default device is {dev.platform} '
+            f'({dev.device_kind}); {what} runs only on a GPU')
+    return dev
+
+
+def gpu_name_and_power_limit() -> str:
+    """nvidia-smi's 'name, power.limit' line for each visible card: a
+    timing is only comparable on the same card at the same power limit."""
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, check=True, timeout=60
+    ).stdout.strip()
