@@ -7,8 +7,7 @@ the primary-only write contract.
 The run is TWO years with years_per_program=2, so the FUSED multi-year SPMD
 program (sharding._build_sharded_years via pipeline.run_tracks_years_fused)
 and the multi-host ensemble-filename broadcast execute across coordinated
-processes — previously they only ever ran on a single-process virtual mesh
-(VERDICT r3 item 4).
+processes — previously they only ever ran on a single-process virtual mesh.
 
 Usage: python distributed_worker.py PROC_ID TMPDIR PORT
 """

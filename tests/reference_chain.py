@@ -2,7 +2,7 @@
 
 An independent, scalar, solve_ivp-based implementation of the reference
 pipeline's seed -> integrate -> filter chain, used ONLY to establish
-whole-chain statistical parity of the JAX pipeline (VERDICT round 1, item 2).
+whole-chain statistical parity of the JAX pipeline.
 
 Reference call path being reproduced (cited per stage below):
   util/compute.py:134-175   rejection-sampling seed loop

@@ -11,7 +11,7 @@ test_seeding_parity / test_simulator / test_fast_golden /
 test_reference_differential; this test catches compounding biases those
 cannot.
 
-Sample sizes and thresholds (round-3 ratchet, VERDICT r2 item 3):
+Sample sizes and thresholds (round-3 ratchet):
 N_REF_SEEDS=40000 yields ~1.5k reference tracks in ~7 min; 20 JAX launches
 of 8192 yield ~3.5k.  The two-sample KS 1% critical value at those sizes
 is ~0.050; we assert < 0.06 (1.2x critical).  The 105k-seed offline report

@@ -5,7 +5,7 @@ full CLI (land masks -> wind stats -> thermo -> simulation -> tracks NetCDF).
 
 Reference equivalent: running run.py with namelist dataset_type='GCM' on the
 GFDL-CM4 wget-script downloads (scripts/download_cmip6.py:17-34,
-util/input.py:111-133).  VERDICT round 1, item 4.
+util/input.py:111-133).
 """
 
 import os

@@ -1,5 +1,5 @@
-"""Two-process jax.distributed integration test (VERDICT round 1 item 5;
-fused multi-year SPMD coverage: VERDICT round 3 item 4).
+"""Two-process jax.distributed integration test, including fused
+multi-year SPMD coverage.
 
 Spawns two coordinated CPU processes (4 virtual devices each -> a global
 8-device seed mesh over gloo collectives) running the real production driver

@@ -1,4 +1,4 @@
-"""distributed.initialize idempotence semantics (VERDICT r4 item 7).
+"""distributed.initialize idempotence semantics.
 
 The no-op-vs-forward decision must come from explicit state/configuration
 probes, never from matching JAX's exception text (which JAX may reword).

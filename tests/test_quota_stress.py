@@ -1,5 +1,5 @@
 """Adversarial-environment stress tests for the quota/stopping-rule
-machinery (VERDICT r4 item 8).
+machinery.
 
 The reference's rejection loop (util/compute.py:134-175) degrades
 gracefully when genesis collapses — it just spins proposing seeds.  The

@@ -1,6 +1,6 @@
 """Reader fuzzing: mutated/corrupted input files must raise NAMED,
 actionable errors — never flow silently wrong data into preprocessing
-(VERDICT r2 item 7; SURVEY.md section 7's "where silent wrongness lives"
+(SURVEY.md section 7's "where silent wrongness lives"
 checklist).
 
 Covered mutations: truncated files (classic and HDF5), scrambled dimension

@@ -1,4 +1,4 @@
-"""Quantify the bathymetry-proxy deviation (VERDICT r2 item 8).
+"""Quantify the bathymetry-proxy deviation.
 
 The reference snapshot ships no bathymetry blob (.MISSING_LARGE_BLOBS:1),
 so `preprocess/static.py:load_bathy` substitutes a land-derived proxy
